@@ -6,21 +6,26 @@
 Phases, each of which must pass or the script exits non-zero:
 
 1. the card: its name, and its name and power limit from nvidia-smi;
-2. the kernel build (nvcc, from tendermint_tpu_torch/csrc), with its time;
-3. the kernel against its plain PyTorch version on the card, on a seeded
-   batch of ~4,096 signatures mixing valid ones, flipped bits in R, S and
-   the message, S >= L, truncated signatures, off-curve and small-order
-   keys, non-canonical R and padding lanes; both bitmaps must equal the
-   scalar reference's;
+2. the kernel build (nvcc, from tendermint_tpu_torch/csrc), with its time,
+   its registers and spills (ptxas) and the blocks of it one SM holds;
+3. the kernel against its plain PyTorch version on the card, both fed the
+   same raw digests and S bytes, on a seeded batch of ~4,096 signatures
+   mixing valid ones, flipped bits in R, S and the message, S >= L,
+   truncated signatures, off-curve and small-order keys, non-canonical R
+   and padding lanes; both bitmaps must equal the scalar reference's; then
+   a copy with out-of-range key indices on some lanes that verify, which
+   must come out false in both;
 4. the main path at full width: a 10,240-validator ed25519 commit through
    ValidatorSet.verify_commit and verify_commit_light (accepted), a copy
    with one tampered signature (ErrWrongSignature at that index), and the
    20,480-signature prevote+precommit batch through Ed25519BatchVerifier;
    the kernel's launch count is read around this phase and must be > 0;
 5. times on the card with CUDA events after a warm-up: verify_commit p50,
-   the kernel and its plain version per 20,480 signatures, the comb-table
-   build for 10,240 keys, and the kernel's bound; then verify_commit's
-   stages one by one and one call under torch.profiler (device idle share).
+   the kernel and its plain version per 20,480 signatures, the kernel at
+   4,096, 10,240, 20,480 and 81,920 signatures (the batch's lanes repeated;
+   checked against the 20,480 result), the comb-table build for 10,240
+   keys, and the kernel's bound; then verify_commit's stages one by one and
+   one call under torch.profiler (device idle share).
 
 Prints a `{"kernels": [...]}` line, the card line, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when no
@@ -49,11 +54,14 @@ PEAK_IMAD_PER_S = 67e12 / 4
 # A 32x32->64 product is two multiply-adds (low and high halves).
 IMAD_PER_PRODUCT = 2
 HBM_BYTES_PER_S = 3.35e12
-# 32x32->64 products per signature in the kernel
-# (tendermint_tpu_torch/csrc/fe25519.cuh): 100 per field multiply, 55 per
-# squaring. Multiplies: 64 steps x (4 + 2 x 7), 11 in the inversion, 2 for
+# 32x32->64 products a signature needs (tendermint_tpu_torch/csrc/
+# fe25519.cuh, sc25519.cuh): 100 per field multiply, 55 per squaring, 84 for
+# h mod L. Multiplies: 64 steps x (4 + 2 x 7), 11 in the inversion, 2 for
 # x and y; squarings: 64 steps x 4, 254 in the inversion.
-PRODUCTS_PER_SIG = (64 * 18 + 11 + 2) * 100 + (64 * 4 + 254) * 55
+PRODUCTS_PER_SIG = (64 * 18 + 11 + 2) * 100 + (64 * 4 + 254) * 55 + 84
+# Lane counts of the kernel's sweep: 4,096, one commit, its prevote +
+# precommit batch, and four such batches.
+SWEEP = (4_096, N_VALIDATORS, 2 * N_VALIDATORS, 8 * N_VALIDATORS)
 
 
 def _keygen(seeds):
@@ -92,6 +100,15 @@ def _time_cuda(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _repeat_lanes(torch, args, m):
+    """The kernel's arguments for the first m lanes of `args` repeated
+    along the lane axis."""
+    tab, *cols = args
+    reps = -(-m // cols[0].shape[-1])
+    return (tab, *[torch.cat([c] * reps, dim=-1)[..., :m].contiguous()
+                   for c in cols])
 
 
 def _lane_inputs(edb, cu, items, dev):
@@ -175,7 +192,7 @@ def _where_the_time_goes(torch, np, cu, edb, vals, commit, block_id, height,
         host = cu.host_lanes(key_idx, items, pub_ok)
         t = lap("host_prep", t)
         args = cu.device_lanes(ks, host, dev)
-        t = lap("h2d_prologue", t)
+        t = lap("upload", t)
         packed = cu.pack_bitmap(cu.verify(*args))
         t = lap("kernel", t)
         if not cu.unpack_bitmap(packed.cpu().numpy(), n).all():
@@ -239,6 +256,11 @@ def main() -> int:
     for line in cu.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
+    info = cu.kernel_info()
+    print(f"[build] kernel: {info['threads']} threads a block, "
+          f"{info['registers']} registers and {info['local_bytes']} local bytes "
+          f"a thread, {info['blocks_per_sm']} blocks resident per SM on {card}",
+          flush=True)
 
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(os.cpu_count() or 1) as pool:
@@ -256,8 +278,22 @@ def main() -> int:
                              f"plain {got_p.sum()} want {want.sum()}")
         if got_k[len(adv):].any():
             raise SystemExit("a padding lane came out true")
+        # out-of-range key indices on lanes that verify: 0 in both
+        hit = np.flatnonzero(got_k)[::50]
+        bad = args[1].clone()
+        bad[torch.from_numpy(hit).to(dev)] = torch.tensor(
+            [-1, args[0].shape[0], 1 << 30], dtype=torch.int32,
+            device=dev).repeat(len(hit))[:len(hit)]
+        bargs = (args[0], bad, *args[2:])
+        bad_k = cu.verify(*bargs).cpu().numpy()
+        rest = np.ones(lanes, dtype=bool)
+        rest[hit] = False
+        if ((bad_k != cu.verify_plain(*bargs).cpu().numpy()).any()
+                or bad_k[hit].any() or (bad_k[rest] != got_k[rest]).any()):
+            raise SystemExit("lanes with an out-of-range key index are wrong")
         print(f"[kernel==plain==reference] {len(adv)} signatures + "
-              f"{lanes - len(adv)} padding lanes, {int(want.sum())} valid, "
+              f"{lanes - len(adv)} padding lanes, {int(want.sum())} valid; "
+              f"{len(hit)} of those false with an out-of-range key index; "
               f"{time.monotonic() - t0:.1f} s", flush=True)
 
         # 4. the main path at full width
@@ -337,6 +373,7 @@ def main() -> int:
     p50 = float(np.median(commit_ms))
     args, ks = _lane_inputs(edb, cu, [(pk.bytes(), m, s)
                                       for pk, m, s in batch_items], dev)
+    tab = args[0]
     n_sig = len(batch_items)
     kernel_ms = _time_cuda(torch, lambda: cu.verify(*args), 10)
     plain_ms = _time_cuda(torch, lambda: cu.verify_plain(*args), 2)
@@ -345,10 +382,15 @@ def main() -> int:
     err = max(adv_err, int((ok_k - ok_p).abs().max()))
     if err or not (ok_k[:n_sig].cpu().numpy().astype(bool) == batch_want).all():
         raise SystemExit("kernel and plain version disagree at 20,480")
+    sweep = []
+    for m in SWEEP:
+        sargs = _repeat_lanes(torch, args, m)
+        if not torch.equal(cu.verify(*sargs), _repeat_lanes(torch, (tab, ok_k), m)[1]):
+            raise SystemExit(f"kernel at {m} lanes disagrees with its 20,480 result")
+        sweep.append((m, _time_cuda(torch, lambda: cu.verify(*sargs), 10)))
     a_neg = ks.tab_ext[:, 1]  # T[1] = -A for every key
     table_ms = _time_cuda(
         torch, lambda: cu.kernel_table(edb.to_niels(edb.build_comb_tables(a_neg))), 2)
-    tab = args[0]
     bytes_moved = (sum(t.numel() * t.element_size() for t in args)
                    + cu.tab_b10(dev).numel() * 4 + n_sig * 4)
     ops_s = n_sig * PRODUCTS_PER_SIG * IMAD_PER_PRODUCT / PEAK_IMAD_PER_S
@@ -360,6 +402,9 @@ def main() -> int:
           f"({tab.shape[0]} keys), bound {bound_ms:.3f} ms "
           f"({'operations' if ops_s >= bytes_s else 'bytes'}), on {card}")
     print(f"[time] plain version {plain_ms:.1f} ms per {n_sig} signatures on {card}")
+    print("[time] kernel sweep: " + ", ".join(
+        f"{m} sigs {ms:.3f} ms ({1e3 * ms / m:.4f} us/sig)" for m, ms in sweep)
+        + f" on {card}")
     print(f"[time] comb-table build {table_ms:.1f} ms for {a_neg.shape[0]} keys "
           f"on {card}", flush=True)
     _where_the_time_goes(torch, np, cu, edb, vals, commit, block_id, height,

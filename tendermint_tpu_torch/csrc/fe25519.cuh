@@ -1,4 +1,4 @@
-// GF(2^255-19) and edwards25519 point arithmetic for one CUDA thread.
+// GF(2^255-19) arithmetic for one CUDA thread.
 //
 // Field elements are 10 signed 32-bit limbs in radix 2^25.5 (ref10's form):
 // limb i has weight 2^ceil(25.5 i) = 2^{0,26,51,77,102,128,153,179,204,230},
@@ -22,8 +22,10 @@
 //   add at most 2^37 * 19 / 2^26 < 2^15.3 to limb 1 and a small amount to
 //   limb 5: every limb is within 2^25 + 2^16 < 2^26, so the result is in B.
 // * fe_add / fe_sub of two elements of B: |t_k| <= 2^27, then fe_carry:
-//   result in B. Every operation ends in fe_carry, so every mul input is in
-//   B whatever chain of adds and subs produced it.
+//   result in B. fe_lin(a, b, mb, c, mc) = a + mb b + mc c with
+//   |mb| + |mc| <= 3: |t_k| <= 4 * 2^26 = 2^28, then fe_carry: in B. Every
+//   operation ends in fe_carry, so every mul input is in B whatever chain of
+//   adds and subs produced it.
 // * fe_canonical(h) for carried h (|limbs| as after fe_carry): ref10's
 //   fe_tobytes reduction; the result has limbs in [0, 2^26) / [0, 2^25) and
 //   value in [0, p).
@@ -36,10 +38,6 @@
 
 struct fe {
     int32_t v[10];
-};
-
-struct ge {  // extended coordinates (X : Y : Z : T), x = X/Z, y = Y/Z, xy = T/Z
-    fe X, Y, Z, T;
 };
 
 __device__ __forceinline__ fe fe_carry(int64_t t[10]) {
@@ -74,6 +72,28 @@ __device__ __forceinline__ fe fe_sub(const fe& a, const fe& b) {
 #pragma unroll
     for (int i = 0; i < 10; i++) t[i] = (int64_t)a.v[i] - b.v[i];
     return fe_carry(t);
+}
+
+// a + mb b + mc c for small multipliers, |mb| + |mc| <= 3 (bound above).
+__device__ __forceinline__ fe fe_lin(const fe& a, const fe& b, int32_t mb,
+                                     const fe& c, int32_t mc) {
+    int64_t t[10];
+#pragma unroll
+    for (int i = 0; i < 10; i++) t[i] = a.v[i] + mb * b.v[i] + mc * c.v[i];
+    return fe_carry(t);
+}
+
+__device__ __forceinline__ fe fe_lin(const fe& a, const fe& b, int32_t mb) {
+    return fe_lin(a, b, mb, b, 0);
+}
+
+// c ? a : b, limb by limb: a select, never a branch, so that the threads of
+// a warp that pick differently do not diverge.
+__device__ __forceinline__ fe fe_select(bool c, const fe& a, const fe& b) {
+    fe h;
+#pragma unroll
+    for (int i = 0; i < 10; i++) h.v[i] = c ? a.v[i] : b.v[i];
+    return h;
 }
 
 __device__ __forceinline__ fe fe_mul(const fe& f, const fe& g) {
@@ -166,93 +186,4 @@ __device__ __forceinline__ fe fe_load(const int32_t* p) {
 #pragma unroll
     for (int i = 0; i < 10; i++) h.v[i] = p[i];
     return h;
-}
-
-// Dedicated doubling (dbl-2008-hwcd, a = -1).
-__device__ __forceinline__ ge ge_double(const ge& p) {
-    fe a = fe_sq(p.X);
-    fe b = fe_sq(p.Y);
-    fe zz = fe_sq(p.Z);
-    fe c = fe_add(zz, zz);
-    fe h = fe_add(a, b);
-    fe e = fe_sub(h, fe_sq(fe_add(p.X, p.Y)));
-    fe g = fe_sub(a, b);
-    fe f = fe_add(c, g);
-    ge r;
-    r.X = fe_mul(e, f);
-    r.Y = fe_mul(g, h);
-    r.Z = fe_mul(f, g);
-    r.T = fe_mul(e, h);
-    return r;
-}
-
-// Mixed add with an affine point in niels form (y+x, y-x, 2dxy): 7 muls.
-// Complete: the identity entry (1, 1, 0) and small-order points need no
-// special case.
-__device__ __forceinline__ ge ge_madd(const ge& p, const fe& ypx, const fe& ymx,
-                                      const fe& t2d) {
-    fe a = fe_mul(fe_sub(p.Y, p.X), ymx);
-    fe b = fe_mul(fe_add(p.Y, p.X), ypx);
-    fe c = fe_mul(p.T, t2d);
-    fe d = fe_add(p.Z, p.Z);
-    fe e = fe_sub(b, a);
-    fe f = fe_sub(d, c);
-    fe g = fe_add(d, c);
-    fe h = fe_add(b, a);
-    ge r;
-    r.X = fe_mul(e, f);
-    r.Y = fe_mul(g, h);
-    r.Z = fe_mul(f, g);
-    r.T = fe_mul(e, h);
-    return r;
-}
-
-// Bits [off, off + width) of a 256-bit little-endian value, width <= 32.
-__device__ __forceinline__ int32_t bits256(const uint64_t w[4], int off, int width) {
-    const int k = off >> 6, s = off & 63;
-    uint64_t v = w[k] >> s;
-    if (s + width > 64) v |= w[k + 1] << (64 - s);
-    return (int32_t)(v & ((1ULL << width) - 1));
-}
-
-// One signature: R' = [s]B + [h](-A) by the 4-tooth comb, canonical
-// compression, compare with R. ktab: this key's 16 x 3 x 10 niels table;
-// btab: the same for B; h_win / s_win / r32 point at the lane's first
-// element of row-major (rows, n) arrays with row stride `stride`.
-// Returns 1 when encode(R') == R.
-__device__ __forceinline__ int32_t ed25519_verify_lane(
-        const int32_t* ktab, const int32_t* btab, const uint8_t* h_win,
-        const uint8_t* s_win, const uint8_t* r32, size_t stride) {
-    ge acc;
-#pragma unroll
-    for (int i = 0; i < 10; i++) {
-        acc.X.v[i] = 0; acc.Y.v[i] = (i == 0); acc.Z.v[i] = (i == 0); acc.T.v[i] = 0;
-    }
-    for (int j = 0; j < 64; j++) {
-        acc = ge_double(acc);
-        const int32_t* pa = ktab + (h_win[j * stride] & 15) * 30;
-        acc = ge_madd(acc, fe_load(pa), fe_load(pa + 10), fe_load(pa + 20));
-        const int32_t* pb = btab + (s_win[j * stride] & 15) * 30;
-        acc = ge_madd(acc, fe_load(pb), fe_load(pb + 10), fe_load(pb + 20));
-    }
-    const fe zinv = fe_invert(acc.Z);
-    const fe x = fe_canonical(fe_mul(acc.X, zinv));
-    const fe y = fe_canonical(fe_mul(acc.Y, zinv));
-
-    uint64_t w[4];
-#pragma unroll
-    for (int k = 0; k < 4; k++) {
-        w[k] = 0;
-#pragma unroll
-        for (int b = 0; b < 8; b++) w[k] |= (uint64_t)r32[(8 * k + b) * stride] << (8 * b);
-    }
-    int32_t eq = (x.v[0] & 1) == (int32_t)(w[3] >> 63);
-    int off = 0;
-#pragma unroll
-    for (int i = 0; i < 10; i++) {
-        const int width = (i & 1) ? 25 : 26;
-        eq &= y.v[i] == bits256(w, off, width);  // bits 0..254: sign excluded
-        off += width;
-    }
-    return eq;
 }

@@ -3,10 +3,10 @@ the dispatch into the CUDA kernel (ops/ed25519_cuda.py).
 
     host (vectorized over the whole batch):
         size checks, S < L check, SHA-512 h = H(R||A||msg) with hashlib
-    device:
-        mod-L reduction and comb windows (torch ops), then the kernel:
-        R' = [s]B + [h](-A) via a comb (Lim-Lee) evaluation, canonical
-        compression and an exact compare against the sig's R.
+    device (one kernel):
+        mod-L reduction of h and comb windows, then R' = [s]B + [h](-A) via
+        a comb (Lim-Lee) evaluation, canonical compression and an exact
+        compare against the sig's R.
 
 Comb method (t=4 teeth, d=64 columns): scalar bits split into 4 blocks of 64;
 T[w] = sum_j w_j * [2^(64j)] P for w in 0..15; evaluation

@@ -1,33 +1,36 @@
 """Batched ed25519 verification on the card: the CUDA kernel, its plain
-PyTorch version, the prologue that feeds it, and the chunked dispatch.
+PyTorch version, and the chunked dispatch.
 
 The kernel (csrc/ed25519_verify.cu) replaces the JAX package's Pallas kernel
 `ed25519_pallas._kernel` (tendermint_tpu/ops/ed25519_pallas.py:283, launched
-at :342). It computes the same function: per signature lane,
-R' = [s]B + [h](-A) by a 64-step, 4-tooth comb (one doubling and two mixed
-niels adds a step), then a Fermat Z inversion, canonical x and y, and a
-compare of y and sign(x) with the signature's R bytes, ANDed with the host
-validity. Its layout is the card's, not the TPU's: one thread per signature,
+at :342) and the device prologue of `_verify_chunk` (:478) that feeds it. It
+computes the same function: per signature lane, h mod L from the raw SHA-512
+digest and the comb windows of h and s, R' = [s]B + [h](-A) by a 64-step,
+4-tooth comb (one doubling and two mixed niels adds a step), then a Fermat Z
+inversion, canonical x and y, and a compare of y and sign(x) with the
+signature's R bytes, ANDed with the host validity. Its layout is the card's,
+not the TPU's: four threads per signature, one per coordinate X, Y, Z, T,
 field elements in registers as 10 signed limbs (radix 2^25.5) multiplied
 32x32->64, the per-key niels table read from device memory by key index, the
-fixed-base table for B in shared memory. The bound argument is written in
-csrc/fe25519.cuh.
+fixed-base table for B in shared memory. The bound arguments are written in
+csrc/fe25519.cuh (field) and csrc/sc25519.cuh (mod L); the 4-thread program
+in csrc/ed25519_lanes.cuh.
 
 Inputs of both `verify` (the wrapper) and `verify_plain`:
 
     tab     (Kb, 16, 3, 10) int32  per-key niels comb tables in the kernel's
                                    limb form (KeySet.kernel_rows(); canonical)
     key_idx (N,)  int32            lane -> table row
-    h_win   (64, N) uint8          comb windows of h mod L, processing order
-    s_win   (64, N) uint8          comb windows of s, processing order
+    h64     (64, N) uint8          SHA-512(R || A || M) digests
+    s32     (32, N) uint8          the signatures' S bytes
     r32     (32, N) uint8          the signatures' R bytes
     valid   (N,)  uint8            host validity (size, S < L, key decodes)
     ->      (N,)  int32            1 where the signature verifies
 
-The prologue (mod-L reduction of the SHA-512 digests, comb windows, R limbs)
-runs as torch ops on the device before the launch, mirroring
+The kernel reduces h mod L and takes the windows itself. The torch prologue
+below (mod-L reduction, comb windows, R limbs; the counterpart of
 ed25519_pallas._reduce_mod_l_device / _windows_from_limbs12 /
-_windows_device / _r_limbs_device.
+_windows_device / _r_limbs_device) feeds only the plain version.
 """
 
 from __future__ import annotations
@@ -131,7 +134,8 @@ def tab_b10(device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Prologue (torch ops, limb-major like the JAX device code)
+# Prologue of the plain version (torch ops, limb-major like the JAX device
+# code)
 # ---------------------------------------------------------------------------
 
 _L_RADIX = 12
@@ -226,14 +230,19 @@ def r_limbs(r32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def verify_plain(tab, key_idx, h_win, s_win, r32, valid) -> torch.Tensor:
+def verify_plain(tab, key_idx, h64, s32, r32, valid) -> torch.Tensor:
     """The kernel's function as torch ops on the port's field and point
     modules (the torch counterpart of ed25519_batch._verify_kernel in the
-    JAX package, with the kernel's niels mixed adds)."""
+    JAX package with its prologue, and the kernel's niels mixed adds). A
+    lane whose key index is out of range comes out 0, as in the kernel."""
+    h_win = windows_from_limbs12(reduce_mod_l(h64))
+    s_win = windows_from_bytes(s32)
     dev = tab.device
     n = key_idx.shape[0]
     lanes = torch.arange(n, device=dev)
-    sel = from_fe10(tab[key_idx.long()])  # (N, 16, 3, 20)
+    key = key_idx.long()
+    key_ok = (key >= 0) & (key < tab.shape[0])
+    sel = from_fe10(tab[torch.where(key_ok, key, 0)])  # (N, 16, 3, 20)
     tb = torch.as_tensor(TAB_B_NIELS, device=dev)
     acc = ed.identity((n,), dev)
     for j in range(64):
@@ -244,7 +253,7 @@ def verify_plain(tab, key_idx, h_win, s_win, r32, valid) -> torch.Tensor:
         acc = ed.madd_niels(acc, pb[:, 0], pb[:, 1], pb[:, 2])
     y, sign = ed.compress_canonical(acc)
     r_y, r_sign = r_limbs(r32)
-    ok = (y == r_y.T).all(dim=-1) & (sign == r_sign[0]) & (valid != 0)
+    ok = (y == r_y.T).all(dim=-1) & (sign == r_sign[0]) & (valid != 0) & key_ok
     return ok.to(torch.int32)
 
 
@@ -259,32 +268,34 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def verify(tab, key_idx, h_win, s_win, r32, valid) -> torch.Tensor:
+def verify(tab, key_idx, h64, s32, r32, valid) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors; CPU tensors take the plain
     version. Returns (N,) int32, 1 where the signature verifies."""
     global launches
     if tab.device.type == "cpu":
-        return verify_plain(tab, key_idx, h_win, s_win, r32, valid)
+        return verify_plain(tab, key_idx, h64, s32, r32, valid)
     if tab.device.type != "cuda":
         raise ValueError(f"unsupported device {tab.device}")
     dev = tab.device
     n = key_idx.shape[0]
     _check("tab", tab, torch.int32, (tab.shape[0], 16, 3, 10), dev)
     _check("key_idx", key_idx, torch.int32, (n,), dev)
-    _check("h_win", h_win, torch.uint8, (64, n), dev)
-    _check("s_win", s_win, torch.uint8, (64, n), dev)
+    _check("h64", h64, torch.uint8, (64, n), dev)
+    _check("s32", s32, torch.uint8, (32, n), dev)
     _check("r32", r32, torch.uint8, (32, n), dev)
     _check("valid", valid, torch.uint8, (n,), dev)
     tb = tab_b10(dev)
     ok = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return ok
+    if tab.shape[0] == 0:
+        raise ValueError("tab: no keys")
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tm_ed25519_verify(
-            tab.data_ptr(), tab.shape[0], key_idx.data_ptr(), h_win.data_ptr(),
-            s_win.data_ptr(), r32.data_ptr(), valid.data_ptr(), tb.data_ptr(),
+            tab.data_ptr(), tab.shape[0], key_idx.data_ptr(), h64.data_ptr(),
+            s32.data_ptr(), r32.data_ptr(), valid.data_ptr(), tb.data_ptr(),
             ok.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"ed25519 verify kernel launch failed: CUDA error {err}")
@@ -298,7 +309,7 @@ def verify(tab, key_idx, h_win, s_win, r32, valid) -> torch.Tensor:
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
-SOURCES = ("fe25519.cuh", "ed25519_verify.cu")
+SOURCES = ("fe25519.cuh", "sc25519.cuh", "ed25519_lanes.cuh", "ed25519_verify.cu")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -338,16 +349,34 @@ def build_library() -> str:
     return out
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """Load a build of csrc/ed25519_verify.cu and declare its C functions."""
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.tm_ed25519_verify.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, vp]
+    lib.tm_ed25519_verify.restype = ci
+    lib.tm_ed25519_kernel_info.argtypes = [vp]
+    lib.tm_ed25519_kernel_info.restype = ci
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build_library())
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tm_ed25519_verify.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp,
-                                          ci, vp]
-        lib.tm_ed25519_verify.restype = ci
-        _LIB = lib
+        _LIB = bind(build_library())
     return _LIB
+
+
+def kernel_info(lib: ctypes.CDLL | None = None) -> dict:
+    """The built kernel's block size, registers and local (spill) bytes a
+    thread, and the blocks of it one SM holds at once (CUDA's occupancy
+    calculator). `lib`: a bound build, by default the package's."""
+    info = (ctypes.c_int * 4)()
+    err = (lib or load_library()).tm_ed25519_kernel_info(ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"ed25519 kernel attributes: CUDA error {err}")
+    return dict(threads=info[0], registers=info[1], local_bytes=info[2],
+                blocks_per_sm=info[3])
 
 
 # ---------------------------------------------------------------------------
@@ -395,18 +424,17 @@ def host_lanes(key_idx: np.ndarray, items, pub_ok: np.ndarray) -> dict:
 
 
 def device_lanes(ks, host: dict, device) -> tuple:
-    """Upload of host_lanes' arrays and the prologue on the device: the
-    kernel's arguments (tab, key_idx, h_win, s_win, r32, valid)."""
+    """Upload of host_lanes' arrays: the kernel's arguments
+    (tab, key_idx, h64, s32, r32, valid)."""
     up = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
-    return (ks.kernel_rows(), up["key_idx"],
-            windows_from_limbs12(reduce_mod_l(up["h64"])),
-            windows_from_bytes(up["s32"]), up["r32"], up["valid"])
+    return (ks.kernel_rows(), up["key_idx"], up["h64"], up["s32"], up["r32"],
+            up["valid"])
 
 
 def lane_inputs(ks, key_idx: np.ndarray, items, pub_ok: np.ndarray,
                 device) -> tuple:
     """Host prep of `items` and upload: the kernel's arguments
-    (tab, key_idx, h_win, s_win, r32, valid) for len(items) rounded up to a
+    (tab, key_idx, h64, s32, r32, valid) for len(items) rounded up to a
     multiple of 32 lanes."""
     return device_lanes(ks, host_lanes(key_idx, items, pub_ok), device)
 

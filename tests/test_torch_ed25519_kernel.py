@@ -1,7 +1,9 @@
-"""The port's kernel module against the JAX package: the prologue (mod-L
-reduction, comb windows, R limbs), the comb-table build, the plain verify
-against the JAX device path, the kernel's own arithmetic compiled for the
-host, and the JAX -> port key-set conversion. Bitmaps must match exactly.
+"""The port's kernel module against the JAX package: the plain version's
+prologue (mod-L reduction, comb windows, R limbs), the comb-table build, the
+plain verify against the JAX device path, the kernel's own arithmetic (the
+scalar reduction, the windows, each round of the 4-lane program and the
+whole of it) compiled for the host, and the JAX -> port key-set conversion.
+Bitmaps must match exactly.
 
 The JAX device path is run as the JAX package's tests run it on the CPU:
 `ed25519_batch.verify_batch(items, force_device=True)`, which goes through
@@ -30,6 +32,7 @@ from tendermint_tpu_torch.crypto import ed25519 as ref
 from tendermint_tpu_torch.device import set_default_device
 from tendermint_tpu_torch.ops import ed25519_batch as edb
 from tendermint_tpu_torch.ops import ed25519_cuda as cu
+from tendermint_tpu_torch.ops import edwards25519 as ed
 from tendermint_tpu_torch.ops import field25519 as fe
 from tendermint_tpu_torch.ops import scalar25519 as sc
 
@@ -197,24 +200,94 @@ def test_wrapper_on_cpu_takes_plain_version_and_pads_false(mixed):
     assert cu.unpack_bitmap(packed.numpy(), len(items)).tolist() == want.tolist()
 
 
-_HOST_HARNESS = r"""
-#include "fe25519.cuh"
+_LANES_HARNESS = r"""
+#include "ed25519_lanes.cuh"
+
+// The kernel's 4-thread program with the exchanges between rounds made by
+// array reads: lane k reads lane j's value x as x[j].
+static void group_double(fe v[4], fe s[4], fe m[4]) {
+  for (int k = 0; k < 4; k++) s[k] = dbl_round1(k, v[k], v[0], v[1]);
+  for (int k = 0; k < 4; k++) m[k] = dbl_mid(k, s[0], s[1], s[dbl_extra_src(k)]);
+  for (int k = 0; k < 4; k++) v[k] = ext_round2(k, m[k], m[ext_src(k)], m[1]);
+}
+
+static void group_madd(fe v[4], const int32_t* entry, fe r[4], fe m[4]) {
+  for (int k = 0; k < 4; k++)
+    r[k] = madd_round1(k, v[k], v[k ^ 1], fe_load(entry + madd_part(k)));
+  for (int k = 0; k < 4; k++) m[k] = madd_mid(k, r[k], r[k ^ 1]);
+  for (int k = 0; k < 4; k++) v[k] = ext_round2(k, m[k], m[ext_src(k)], m[1]);
+}
+
+static void put(int32_t* out, const fe* a) {
+  for (int k = 0; k < 4; k++)
+    for (int i = 0; i < 10; i++) out[10 * k + i] = a[k].v[i];
+}
+
+extern "C" void host_double4(const int32_t* in, int32_t* s_out, int32_t* m_out,
+                             int32_t* out, int n) {
+  for (int p = 0; p < n; p++) {
+    fe v[4], s[4], m[4];
+    for (int k = 0; k < 4; k++) v[k] = fe_load(in + 40 * p + 10 * k);
+    group_double(v, s, m);
+    put(s_out + 40 * p, s); put(m_out + 40 * p, m); put(out + 40 * p, v);
+  }
+}
+
+extern "C" void host_madd4(const int32_t* in, const int32_t* entries,
+                           int32_t* r_out, int32_t* m_out, int32_t* out, int n) {
+  for (int p = 0; p < n; p++) {
+    fe v[4], r[4], m[4];
+    for (int k = 0; k < 4; k++) v[k] = fe_load(in + 40 * p + 10 * k);
+    group_madd(v, entries + 30 * p, r, m);
+    put(r_out + 40 * p, r); put(m_out + 40 * p, m); put(out + 40 * p, v);
+  }
+}
+
+// d: (n, 64) digests, s: (n, 32) scalars -> (n, 32) h mod L, and the comb
+// windows (n, 64) of h mod L and of s.
+extern "C" void host_scalars(const uint8_t* d, const uint8_t* s, uint8_t* h_out,
+                             uint8_t* h_win, uint8_t* s_win, int n) {
+  for (int p = 0; p < n; p++) {
+    uint64_t hw[4], sw[4];
+    lane_scalars(d + 64 * p, s + 32 * p, 1, hw, sw);
+    for (int b = 0; b < 32; b++) h_out[32 * p + b] = (uint8_t)(hw[b / 8] >> (8 * (b % 8)));
+    for (int i = 0; i < 64; i++) {
+      h_win[64 * p + i] = (uint8_t)comb_window(hw, i);
+      s_win[64 * p + i] = (uint8_t)comb_window(sw, i);
+    }
+  }
+}
+
+// The kernel's body for signature groups 0..groups-1 (groups >= n: groups
+// past n stand for the threads of the last block past the lanes).
 extern "C" void host_verify(const int32_t* tab, int n_keys, const int32_t* key_idx,
-    const uint8_t* h_win, const uint8_t* s_win, const uint8_t* r32,
-    const uint8_t* valid, const int32_t* tab_b, int32_t* ok, int n) {
-  for (int lane = 0; lane < n; lane++) {
-    int key = key_idx[lane];
-    if (!valid[lane] || key < 0 || key >= n_keys) { ok[lane] = 0; continue; }
-    ok[lane] = ed25519_verify_lane(tab + (size_t)key * 480, tab_b, h_win + lane,
-                                   s_win + lane, r32 + lane, (size_t)n);
+    const uint8_t* h64, const uint8_t* s32, const uint8_t* r32,
+    const uint8_t* valid, const int32_t* tab_b, int32_t* ok, int n, int groups) {
+  for (int sig = 0; sig < groups; sig++) {
+    const int col = sig < n ? sig : n - 1;
+    int key = key_idx[col];
+    const bool active = sig < n && valid[col] && key >= 0 && key < n_keys;
+    if (!active) key = 0;
+    uint64_t hw[4], sw[4];
+    lane_scalars(h64 + col, s32 + col, (size_t)n, hw, sw);
+    const int32_t* ktab = tab + (size_t)key * 480;
+    fe v[4], t1[4], t2[4];
+    for (int k = 0; k < 4; k++) v[k] = lane_identity(k);
+    for (int idx = 0; idx < 64; idx++) {
+      group_double(v, t1, t2);
+      group_madd(v, ktab + comb_window(hw, idx) * 30, t1, t2);
+      group_madd(v, tab_b + comb_window(sw, idx) * 30, t1, t2);
+    }
+    const int32_t eq = encodes_to(v[0], v[1], v[2], r32 + col, (size_t)n);
+    if (sig < n) ok[sig] = active && eq;
   }
 }
 """
 
 
 def _compile_for_host(tmp_path, name: str, code: str) -> ctypes.CDLL:
-    """csrc/fe25519.cuh and `code` built by the host C++ compiler, with the
-    CUDA qualifiers defined away."""
+    """The kernel's headers (csrc/) and `code` built by the host C++
+    compiler, with the CUDA qualifiers defined away."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -228,22 +301,174 @@ def _compile_for_host(tmp_path, name: str, code: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib_path))
 
 
-def test_kernel_arithmetic_compiled_for_host_matches_plain(mixed, tmp_path):
-    """The kernel's per-lane arithmetic (csrc/fe25519.cuh) compiled by the
-    host C++ compiler, with the CUDA qualifiers defined away, gives the
-    plain version's bitmap on the same inputs."""
-    lib = _compile_for_host(tmp_path, "host_lane", _HOST_HARNESS)
+@pytest.fixture(scope="module")
+def lanes(tmp_path_factory):
+    return _compile_for_host(tmp_path_factory.mktemp("lanes"), "host_lanes",
+                             _LANES_HARNESS)
+
+
+def _ptr(a: np.ndarray):
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+def _host_scalars(lib, d64: np.ndarray, s32: np.ndarray):
+    n = d64.shape[0]
+    h = np.zeros((n, 32), np.uint8)
+    hw = np.zeros((n, 64), np.uint8)
+    sw = np.zeros((n, 64), np.uint8)
+    lib.host_scalars(_ptr(np.ascontiguousarray(d64)), _ptr(np.ascontiguousarray(s32)),
+                     _ptr(h), _ptr(hw), _ptr(sw), ctypes.c_int(n))
+    return h, hw, sw
+
+
+def _reduction_cases() -> np.ndarray:
+    """_digest_cases() plus the edge values of the reduction's bound
+    argument (csrc/sc25519.cuh) and more seeded random digests."""
+    rng = np.random.default_rng(11)
+    extra = [_le(v, 64) for v in
+             (2**253 - 1, 2**483 - 1, 2**483, (2**29 - 1) << 483,
+              2**512 - 2**252, L << 259, (L - 1) * (2**260 - 1),
+              sum(1 << (21 * i + 20) for i in range(24)),
+              sum(1 << (21 * i) for i in range(24)))]
+    extra += [np.full((64,), b, np.uint8) for b in (0x55, 0xAA, 0x7F, 0x80)]
+    extra += list(rng.integers(0, 256, size=(512, 64), dtype=np.uint8))
+    return np.concatenate([_digest_cases(), np.stack(extra)])
+
+
+def test_kernel_scalar_reduction_matches_python_and_torch(lanes):
+    """The header's sc_reduce of 512-bit digests, compiled for the host,
+    against Python `int % L` and the plain version's torch reduce_mod_l."""
+    arr = _reduction_cases()
+    h, _, _ = _host_scalars(lanes, arr, arr[:, :32])
+    limbs = cu.reduce_mod_l(torch.from_numpy(arr.T.copy())).numpy()
+    for i in range(arr.shape[0]):
+        v = int.from_bytes(arr[i].tobytes(), "little") % L
+        assert int.from_bytes(h[i].tobytes(), "little") == v, i
+        assert sum(int(limbs[j, i]) << (12 * j) for j in range(22)) == v
+
+
+def test_kernel_windows_match_torch_prologue(lanes):
+    """The header's comb windows of h mod L and of s against the plain
+    version's windows_from_limbs12 / windows_from_bytes."""
+    arr = _reduction_cases()
+    s32 = np.ascontiguousarray(arr[:, 32:])
+    _, hw, sw = _host_scalars(lanes, arr, s32)
+    want_h = cu.windows_from_limbs12(cu.reduce_mod_l(torch.from_numpy(arr.T.copy())))
+    want_s = cu.windows_from_bytes(torch.from_numpy(s32.T.copy()))
+    assert (hw == want_h.numpy().T).all()
+    assert (sw == want_s.numpy().T).all()
+
+
+def _points(n: int, seed: int) -> list:
+    """Extended points [s]B with Z != 1, as Python ints."""
+    rng = random.Random(seed)
+    return [ref._scalarmult(rng.randrange(1, L), ref.BASE) for _ in range(n)]
+
+
+def _as_torch(points) -> torch.Tensor:
+    """-> (n, 4, 20) radix-2^13 limbs (field25519's form)."""
+    return torch.from_numpy(np.stack([[fe.from_int(c % P) for c in pt]
+                                      for pt in points]))
+
+
+def _as_fe10(pts: torch.Tensor) -> np.ndarray:
+    """(n, 4, 20) -> (n, 4, 10) int32 kernel limbs, contiguous."""
+    return np.ascontiguousarray(cu.to_fe10(pts).numpy())
+
+
+def _values(a: np.ndarray) -> list:
+    """(..., 10) kernel limbs (signed) -> field values."""
+    return [_fe10_value(r) % P for r in a.reshape(-1, 10)]
+
+
+def _torch_values(t: torch.Tensor) -> list:
+    return [fe.to_int(r) % P for r in t.reshape(-1, 20).numpy()]
+
+
+def test_lane_doubling_round_by_round(lanes):
+    """One 4-lane doubling through the host harness, twice in a row (the
+    second from the first's signed, carried limbs), against
+    edwards25519.double: round 1, the values between the rounds and the
+    result, as field values mod p."""
+    pts = _points(8, 5)
+    x = _as_fe10(_as_torch(pts))
+    want = _as_torch(pts)
+    for _ in range(2):
+        s, m, out = (np.zeros_like(x) for _ in range(3))
+        lanes.host_double4(_ptr(x), _ptr(s), _ptr(m), _ptr(out), ctypes.c_int(len(pts)))
+        vals = [[_fe10_value(c) % P for c in p] for p in x]
+        for (X, Y, Z, _), sv, mv in zip(vals, s, m):
+            S = [X * X % P, Y * Y % P, Z * Z % P, (X + Y) ** 2 % P]
+            assert _values(sv) == S
+            H, G = (S[0] + S[1]) % P, (S[0] - S[1]) % P
+            assert _values(mv) == [(H - S[3]) % P, H, (G + 2 * S[2]) % P, G]
+        want = ed.double(want)
+        assert _values(out) == _torch_values(want)
+        assert np.abs(out.astype(np.int64)).max() <= 1 << 26
+        x = out
+
+
+def test_lane_mixed_add_round_by_round(lanes):
+    """One 4-lane mixed niels add through the host harness, against
+    edwards25519.madd_niels, with entries of a real per-key table and of
+    B's, including the identity entry 0."""
+    pts = _points(8, 6)
+    ks, _, _ = edb.build_keyset([k.pub_key().data for k in _keys(2, 41)], "cpu")
+    rows = torch.cat([ks.kernel_rows().reshape(-1, 3, 10), cu.tab_b10("cpu").reshape(-1, 3, 10)])
+    pick = [0, 5, 15, 16, 31, 32, 40, 47]
+    entries = np.ascontiguousarray(rows[pick].numpy())
+    x = _as_fe10(_as_torch(pts))
+    r, m, out = (np.zeros_like(x) for _ in range(3))
+    lanes.host_madd4(_ptr(x), _ptr(entries), _ptr(r), _ptr(m), _ptr(out), ctypes.c_int(len(pts)))
+    niels = cu.from_fe10(torch.from_numpy(entries))
+    want = ed.madd_niels(_as_torch(pts), niels[:, 0], niels[:, 1], niels[:, 2])
+    assert _values(out) == _torch_values(want)
+    for (X, Y, Z, T), e, rv, mv in zip(pts, entries, r, m):
+        ypx, ymx, t2d = (_fe10_value(c) for c in e)
+        R = [(Y - X) * ymx % P, (Y + X) * ypx % P, T * t2d % P, 2 * Z % P]
+        assert _values(rv) == R
+        assert _values(mv) == [(R[1] - R[0]) % P, (R[1] + R[0]) % P,
+                               (R[3] - R[2]) % P, (R[3] + R[2]) % P]
+
+
+def _host_verify(lib, args) -> np.ndarray:
+    """host_verify over args' lanes and 3 groups past them; checks that
+    nothing is written past the lanes."""
+    n = args[1].shape[0]
+    ok = np.full((n + 3,), 7, dtype=np.int32)
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in args]
+    lib.host_verify(ptrs[0], ctypes.c_int(args[0].shape[0]), *ptrs[1:],
+                    ctypes.c_void_p(cu.tab_b10("cpu").data_ptr()),
+                    _ptr(ok), ctypes.c_int(n), ctypes.c_int(n + 3))
+    assert (ok[n:] == 7).all()
+    return ok[:n]
+
+
+def test_kernel_arithmetic_compiled_for_host_matches_plain(mixed, lanes):
+    """The kernel's 4-lane program (csrc/ed25519_lanes.cuh, sc25519.cuh,
+    fe25519.cuh) compiled by the host C++ compiler, with the CUDA qualifiers
+    defined away, on the raw-byte inputs, gives the plain version's bitmap:
+    padding lanes, groups past the last lane and lanes whose key index is
+    out of range come out 0."""
     items, want, _ = mixed
     ks, key_idx, _ = edb.build_keyset([it[0] for it in items], "cpu")
     args = _lane_args(ks, key_idx, items)
     n = args[1].shape[0]
-    ok = np.zeros((n,), dtype=np.int32)
-    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in args]
-    lib.host_verify(ptrs[0], ctypes.c_int(args[0].shape[0]), *ptrs[1:],
-                    ctypes.c_void_p(cu.tab_b10("cpu").data_ptr()),
-                    ctypes.c_void_p(ok.ctypes.data), ctypes.c_int(n))
+    assert n > len(items)  # padding lanes
+    ok = _host_verify(lanes, args)
     assert ok.tolist() == cu.verify_plain(*args).tolist()
     assert ok[:len(items)].astype(bool).tolist() == want.tolist()
+    assert not ok[len(items):].any()
+
+    bad = args[1].clone()
+    hit = np.zeros((n,), bool)
+    hit[[0, 7, 8]] = True  # lanes that verify
+    assert ok[hit].all()
+    bad[[0, 7, 8]] = torch.tensor([-1, args[0].shape[0], 1 << 30], dtype=torch.int32)
+    bargs = (args[0], bad, *args[2:])
+    ok_bad = _host_verify(lanes, bargs)
+    assert ok_bad.tolist() == cu.verify_plain(*bargs).tolist()
+    assert not ok_bad[hit].any() and (ok_bad[~hit] == ok[~hit]).all()
 
 
 _SQ_HARNESS = r"""
