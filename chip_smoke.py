@@ -8,7 +8,8 @@ Phases, each of which must pass or the script exits non-zero:
 1. the card: its name, and its name and power limit from nvidia-smi;
 2. the kernel builds (nvcc, from tendermint_tpu_torch/csrc, both kernels at
    once), with their times, registers and spills (ptxas) and the blocks of
-   each one SM holds;
+   each one SM holds, and the sr25519 kernel's block shape (comb warps,
+   decode warps, threads);
 3. the ed25519 kernel against its plain PyTorch version on the card, both
    fed the same raw digests and S bytes, on a seeded batch of ~4,096
    signatures mixing valid ones, flipped bits in R, S and the message,
@@ -36,7 +37,10 @@ Phases, each of which must pass or the script exits non-zero:
    (ed25519; mixed at 10,240 and at config 4's 1,000 = 700 + 300), each
    kernel and its plain version per 20,480 signatures beside its bound,
    the ed25519 kernel at 4,096 to 81,920 signatures and the sr25519 kernel
-   at 3,072 and 20,480 (lanes repeated, checked against the first result),
+   at 320 to 81,920, the main path's launch sizes among them (lanes
+   repeated, checked against the first result)
+   with the products its threads issue a signature, counted from the
+   program, against those the signature needs,
    the comb-table builds (10,240 ed25519 keys; 3,072 sr25519 keys with the
    host ristretto decode), then both commits' stages one by one and one
    call of each under torch.profiler (device idle share).
@@ -81,9 +85,20 @@ PRODUCTS_PER_SIG = (64 * 18 + 11 + 2) * 100 + (64 * 4 + 254) * 55 + 84
 # multiplies, 251 squarings) with 13 multiplies and 6 squarings around it,
 # and 4 multiplies of the coset check; 84 for k mod L.
 SR_PRODUCTS_PER_SIG = (64 * 18 + 11 + 13 + 4) * 100 + (64 * 4 + 251 + 6) * 55 + 84
+# Products the sr25519 kernel's threads issue (csrc/sr25519_verify.cu),
+# counted from the program: each of a signature's four comb threads k mod L
+# and 64 steps of one squaring and five multiplies (ed25519_lanes.cuh's
+# rounds), then the coset check's 4 multiplies; a decode lane the decode's
+# 24 multiplies and 257 squarings for each signature it covers.
+SR_COMB_THREAD_PRODUCTS = 84 + 64 * (55 + 5 * 100) + 4 * 100
+SR_DECODE_PRODUCTS = (11 + 13) * 100 + (251 + 6) * 55
 # Lane counts of the kernel's sweep: 4,096, one commit, its prevote +
 # precommit batch, and four such batches.
 SWEEP = (4_096, N_VALIDATORS, 2 * N_VALIDATORS, 8 * N_VALIDATORS)
+# The sr25519 kernel's: the main path's launches (config 4's commit, 300
+# lanes padded to 320; a mixed commit; the mixed batch's sr25519 lanes),
+# then the ed25519 sweep's three largest.
+SR_SWEEP = (320, N_SR, 2 * N_SR, N_VALIDATORS, 2 * N_VALIDATORS, 8 * N_VALIDATORS)
 
 
 def _keygen(seeds):
@@ -492,6 +507,14 @@ def main() -> int:
               f"{info['registers']} registers and {info['local_bytes']} local "
               f"bytes a thread, {info['blocks_per_sm']} blocks resident per SM "
               f"on {card}", flush=True)
+    sr_info = scu.kernel_info()
+    sr_design = (f"{sr_info['comb_warps']} comb warps + {sr_info['decode_warps']} "
+                 f"decode warp(s) x {sr_info['decodes_per_lane']} decodes a lane, "
+                 f"{sr_info['threads']} threads and {sr_info['sigs_per_block']} "
+                 "signatures a block")
+    print(f"[build] sr25519 kernel shape: {sr_design}; {sr_info['registers']} "
+          f"registers, {sr_info['local_bytes']} local bytes, "
+          f"{sr_info['blocks_per_sm']} blocks per SM on {card}", flush=True)
 
     height = 1000
     ts = Time(1_700_000_000, 0)
@@ -618,7 +641,7 @@ def main() -> int:
     print(f"[time] ed25519 comb-table build {table_ms:.1f} ms for {a_neg.shape[0]} "
           f"keys on {card}", flush=True)
 
-    # the sr25519 kernel per 3,072 and 20,480 lanes, and its tables
+    # the sr25519 kernel per 3,072 and 20,480 lanes, its sweep and its tables
     sr_items = [(pk.bytes(), m, s) for pk, m, s in mixed.batch
                 if pk.type == "sr25519"]
     sr_want_b = np.array([w for (pk, _, _), w in zip(mixed.batch, mixed.batch_want)
@@ -629,7 +652,7 @@ def main() -> int:
     if not (sok[:len(sr_items)].cpu().numpy().astype(bool) == sr_want_b).all():
         raise SystemExit("sr25519 kernel wrong on the mixed batch's sr25519 lanes")
     sr_ms = {}
-    for m in (N_SR, 2 * N_VALIDATORS):
+    for m in SR_SWEEP:
         rargs = _repeat_lanes(torch, sargs, m)
         if not torch.equal(scu.verify(*rargs), _repeat_lanes(torch, (sargs[0], sok), m)[1]):
             raise SystemExit(f"sr25519 kernel at {m} lanes disagrees with its first result")
@@ -655,6 +678,16 @@ def main() -> int:
           f"{2 * N_VALIDATORS} signatures, bound {sr_bound_ms:.3f} ms ({sr_bound_by}); "
           f"{sr_ms[N_SR]:.3f} ms per {N_SR}, bound {sr_bound_3k:.3f} ms "
           f"({sks.n_keys} keys; lanes repeated) on {card}")
+    print("[time] sr25519 kernel sweep: " + ", ".join(
+        f"{m} sigs {ms:.3f} ms ({1e3 * ms / m:.4f} us/sig)" for m, ms in sr_ms.items())
+        + f" on {card}")
+    decodes_per_sig = (32 * sr_info["decode_warps"] * sr_info["decodes_per_lane"]
+                       / sr_info["sigs_per_block"])
+    issued = 4 * SR_COMB_THREAD_PRODUCTS + decodes_per_sig * SR_DECODE_PRODUCTS
+    print(f"[count] sr25519 kernel issues {issued:.0f} lane-products a signature "
+          f"(counted from the program: 4 comb threads x {SR_COMB_THREAD_PRODUCTS}, "
+          f"{decodes_per_sig:g} decode x {SR_DECODE_PRODUCTS}) against "
+          f"{SR_PRODUCTS_PER_SIG} needed: {issued / SR_PRODUCTS_PER_SIG:.3f}x")
     print(f"[time] sr25519 plain version {sr_plain_ms:.1f} ms per "
           f"{2 * N_VALIDATORS} signatures on {card}")
     print(f"[time] sr25519 comb tables for {len(pubs)} keys: host ristretto decode "
@@ -678,6 +711,7 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "sr25519_verify",
+        "design": sr_design,
         "route": "cuda",
         "source": "tendermint_tpu_torch/csrc/sr25519_verify.cu",
         "replaces": "tendermint_tpu/ops/sr25519_batch.py:160",

@@ -1,5 +1,6 @@
-// Batched sr25519 (schnorrkel) verification on Hopper (sm_90a): four
-// threads per signature, one per coordinate of the accumulator.
+// Batched sr25519 (schnorrkel) verification on Hopper (sm_90a): comb warps,
+// four threads per signature, one per coordinate of the accumulator, beside
+// a decode warp whose lanes decode one signature's R each.
 //
 // Replaces the JAX package's device function _sr_verify_kernel
 // (tendermint_tpu/ops/sr25519_batch.py:160, jitted XLA on the TPU) with the
@@ -15,13 +16,25 @@
 // A signature needs 64 x 18 + 28 multiplies (100 products each), 64 x 4 +
 // 257 squarings (55 each; the (p-5)/8 power inside the decode is 11 of the
 // multiplies and 251 of the squarings) and 84 products for k mod L: 146,299
-// wide products, against 133 bytes of per-signature input. The decode and
-// the check run on all four threads of a group, redundantly, as the ed25519
-// kernel's inversion does: the comb's rounds need the four, the decode is
-// one serial chain; overlapping it with the comb is later work. Lanes
-// past n, lanes with validity 0 and out-of-range key indices run the same
-// program on key 0 and write 0: no thread leaves early, so every shuffle
-// names the whole warp.
+// wide products, against 133 bytes of per-signature input.
+//
+// The comb needs the four threads of a group; the decode of R is one serial
+// chain that depends on R alone. Run on the four, as the first version of
+// this kernel did, it was issued four times (a quarter of each lane's
+// 52,539 products). Here a block holds SIGS signatures: COMB_WARPS warps of
+// 8 groups run k mod L and the comb, and DECODE_WARPS warps decode the
+// block's R encodings, DECODES_PER_LANE a lane, into shared memory (where
+// the decode also parks its long-lived values, ristretto.cuh). The
+// decode (16,535 products) is shorter than the comb (35,604), so the decode
+// warps run beside the comb warps and are done before them: a comb warp
+// waits at a named barrier (bar.sync 1) that the decode warps arrive at
+// (bar.arrive 1) once their slots are stored, then runs the coset check on
+// its group's slot. Issued per signature: 4 x (35,604 + 400) + 16,535 =
+// 160,551 products, 1.10x what the signature needs (was 210,156, 1.44x).
+// Lanes past n, lanes with validity 0 and out-of-range key indices run the
+// comb on key 0 and write 0, and decode lanes past n decode column n - 1:
+// no thread leaves before the barrier, and every shuffle names the whole
+// warp.
 //
 // Inputs (device pointers; N lanes, Kb >= 1 keys):
 //   tab     (Kb, 16, 3, 10) int32  per-key niels tables of -A (ristretto
@@ -41,13 +54,63 @@
 #include "comb_group.cuh"
 #include "ristretto.cuh"
 
-// 32 signatures a block. At the ed25519 kernel's cap (3 blocks an SM, 168
-// registers) the decode's live values spill (340 bytes a thread); 2 blocks
-// an SM let a thread have 254 registers (32 bytes spilled) and ran faster
-// at every size on an H100 (tools/ed25519_launch_sweep.py --kernel sr25519,
-// PERF.md).
-#define THREADS 128
-#define MIN_BLOCKS 2
+// The block's shape: warps of each kind, decodes a decode lane runs, and the
+// __launch_bounds__ minimum of resident blocks an SM must fit (which caps
+// the registers a thread: ptxas gives each of an SM's four schedulers a
+// quarter of the register file for the warps it holds, so 3 blocks of 5
+// warps get 128 registers a thread, and the comb and the parked decode run
+// in 128 without spilling). Chosen on an H100 by
+// tools/ed25519_launch_sweep.py --kernel sr25519, which rewrites these four
+// lines, by one rule: of the builds with no spill that beat the previous
+// kernel at 3,072 and at 20,480 signatures, the fastest at 20,480. The
+// sweep's two-launch variant (a decode kernel, then a comb kernel) is
+// faster at 20,480 but slower than the previous kernel at 3,072; 3 comb
+// warps a block are faster below 10,240 and slower from there (PERF.md).
+#define COMB_WARPS 4
+#define DECODE_WARPS 1
+#define DECODES_PER_LANE 1
+#define MIN_BLOCKS 3
+
+#define THREADS (32 * (COMB_WARPS + DECODE_WARPS))
+#define SIGS (8 * COMB_WARPS)
+static_assert(SIGS <= 32 * DECODE_WARPS * DECODES_PER_LANE,
+              "the decode lanes must cover the block's signatures");
+
+// Named barrier 1 (0 is __syncthreads'): the decode warps arrive, the comb
+// warps wait for all THREADS threads. Both order shared memory: the stores
+// before bar.arrive are seen by the loads after bar.sync.
+__device__ __forceinline__ void decoded_arrive() {
+    asm volatile("bar.arrive 1, %0;" ::"n"(THREADS) : "memory");
+}
+
+__device__ __forceinline__ void decoded_wait() {
+    asm volatile("bar.sync 1, %0;" ::"n"(THREADS) : "memory");
+}
+
+// Lane k's coordinate of signature sig's R' (key 0 when the lane is not
+// active; *active says whether it is).
+__device__ __forceinline__ fe sr_lane_comb(int sig, int k, const int32_t* tab,
+                                           int n_keys, const int32_t* key_idx,
+                                           const uint8_t* k64, const uint8_t* s32,
+                                           const uint8_t* valid, const int32_t* sb,
+                                           int n, bool* active) {
+    const int col = sig < n ? sig : n - 1;
+    int key = key_idx[col];
+    *active = sig < n && valid[col] && key >= 0 && key < n_keys;
+    if (!*active) key = 0;
+    uint64_t kw[4], sw[4];
+    lane_scalars(k64 + col, s32 + col, (size_t)n, kw, sw);
+    return group_comb(k, tab + (size_t)key * TAB_INTS, sb, kw, sw);
+}
+
+// The coset check of the group's R' (v on each of its lanes) against the
+// decoded slot at dec: 1 when R decodes and the points agree.
+__device__ __forceinline__ int32_t sr_lane_check(const fe& v, const int32_t* dec,
+                                                 int stride) {
+    fe x, y;
+    const int32_t r_ok = ristretto_decoded_load(dec, stride, &x, &y);
+    return r_ok & ristretto_coset_eq(shfl4(v, 0), shfl4(v, 1), x, y);
+}
 
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 sr25519_verify_kernel(const int32_t* __restrict__ tab, int n_keys,
@@ -59,24 +122,34 @@ sr25519_verify_kernel(const int32_t* __restrict__ tab, int n_keys,
                       const int32_t* __restrict__ tab_b,
                       int32_t* __restrict__ ok, int n) {
     __shared__ int32_t sb[TAB_INTS];
+    __shared__ int32_t dec[DEC_INTS * SIGS];
+    __shared__ int32_t park[PARK_INTS * SIGS];
     for (int i = threadIdx.x; i < TAB_INTS; i += blockDim.x) sb[i] = tab_b[i];
     __syncthreads();
 
-    const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-    const int sig = gid >> 2, k = gid & 3;
-    const int col = sig < n ? sig : n - 1;
-    int key = key_idx[col];
-    const bool active = sig < n && valid[col] && key >= 0 && key < n_keys;
-    if (!active) key = 0;
-
-    uint64_t kw[4], sw[4];
-    lane_scalars(k64 + col, s32 + col, (size_t)n, kw, sw);
-    const fe v = group_comb(k, tab + (size_t)key * TAB_INTS, sb, kw, sw);
-    // Only v stays live across the decode; X' and Y' are read after it.
-    fe x, y;
-    const int32_t r_ok = ristretto_decode(fe_from_le(r32 + col, (size_t)n), &x, &y);
-    const int32_t eq = ristretto_coset_eq(shfl4(v, 0), shfl4(v, 1), x, y);
-    if (k == 0 && sig < n) ok[sig] = active && r_ok && eq;
+    const int base = blockIdx.x * SIGS;
+    if (threadIdx.x >= 32 * COMB_WARPS) {
+        // A decode lane: slots lane, lane + 32 DECODE_WARPS, ...
+        const int lane = threadIdx.x - 32 * COMB_WARPS;
+#pragma unroll 1
+        for (int j = 0; j < DECODES_PER_LANE; j++) {
+            const int slot = lane + 32 * DECODE_WARPS * j;
+            const int col = base + slot < n ? base + slot : n - 1;
+            if (slot < SIGS)
+                ristretto_decode_store(r32 + col, (size_t)n, dec + slot, SIGS, park + slot,
+                                       SIGS);
+        }
+        decoded_arrive();
+    } else {
+        const int slot = threadIdx.x >> 2, k = threadIdx.x & 3;
+        const int sig = base + slot;
+        bool active;
+        const fe v = sr_lane_comb(sig, k, tab, n_keys, key_idx, k64, s32, valid, sb,
+                                  n, &active);
+        decoded_wait();
+        const int32_t eq = sr_lane_check(v, dec + slot, SIGS);
+        if (k == 0 && sig < n) ok[sig] = active && eq;
+    }
 }
 
 extern "C" int tm_sr25519_verify(const void* tab, int n_keys, const void* key_idx,
@@ -85,7 +158,7 @@ extern "C" int tm_sr25519_verify(const void* tab, int n_keys, const void* key_id
                                  const void* tab_b, void* ok, int n,
                                  void* stream) {
     if (n <= 0) return 0;
-    const int blocks = (4 * n + THREADS - 1) / THREADS;
+    const int blocks = (n + SIGS - 1) / SIGS;
     sr25519_verify_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         (const int32_t*)tab, n_keys, (const int32_t*)key_idx,
         (const uint8_t*)k64, (const uint8_t*)s32, (const uint8_t*)r32,
@@ -107,4 +180,13 @@ extern "C" int tm_sr25519_kernel_info(int* info) {
     info[2] = (int)a.localSizeBytes;
     info[3] = blocks;
     return (int)err;
+}
+
+// The block's shape: shape = {comb warps, decode warps, decodes a decode
+// lane, signatures a block}.
+extern "C" void tm_sr25519_kernel_shape(int* shape) {
+    shape[0] = COMB_WARPS;
+    shape[1] = DECODE_WARPS;
+    shape[2] = DECODES_PER_LANE;
+    shape[3] = SIGS;
 }

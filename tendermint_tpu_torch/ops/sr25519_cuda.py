@@ -9,8 +9,9 @@ challenges that the JAX package does on the host. Per signature lane: k mod
 L from the wide merlin challenge and the comb windows of k and s,
 R' = [s]B + [k](-A) by the ed25519 kernel's 64-step comb on four threads
 (csrc/comb_group.cuh), the decode of the R encoding to (x, y)
-(csrc/ristretto.cuh), and the coset check X' y == Y' x or Y' y == X' x,
-ANDed with the decode's validity, the host validity and the key range.
+(csrc/ristretto.cuh) by a decode warp of the block, once a signature, beside
+the comb, and the coset check X' y == Y' x or Y' y == X' x, ANDed with the
+decode's validity, the host validity and the key range. One launch a call.
 
 Inputs of both `verify` (the wrapper) and `verify_plain`:
 
@@ -191,6 +192,8 @@ def bind(path: str) -> ctypes.CDLL:
     lib.tm_sr25519_verify.restype = ci
     lib.tm_sr25519_kernel_info.argtypes = [vp]
     lib.tm_sr25519_kernel_info.restype = ci
+    lib.tm_sr25519_kernel_shape.argtypes = [vp]
+    lib.tm_sr25519_kernel_shape.restype = None
     return lib
 
 
@@ -202,10 +205,16 @@ def load_library() -> ctypes.CDLL:
 
 
 def kernel_info(lib: ctypes.CDLL | None = None) -> dict:
-    """edc.read_kernel_info of the built kernel. `lib`: a bound build, by
-    default the package's."""
-    return edc.read_kernel_info((lib or load_library()).tm_sr25519_kernel_info,
-                                "sr25519")
+    """edc.read_kernel_info of the built kernel and its block's shape:
+    comb_warps, decode_warps, decodes_per_lane (of a decode warp) and
+    sigs_per_block. `lib`: a bound build, by default the package's."""
+    lib = lib or load_library()
+    info = edc.read_kernel_info(lib.tm_sr25519_kernel_info, "sr25519")
+    shape = (ctypes.c_int * 4)()
+    lib.tm_sr25519_kernel_shape(ctypes.addressof(shape))
+    info.update(comb_warps=shape[0], decode_warps=shape[1],
+                decodes_per_lane=shape[2], sigs_per_block=shape[3])
+    return info
 
 
 # ---------------------------------------------------------------------------

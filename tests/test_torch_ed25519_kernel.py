@@ -5,9 +5,12 @@ scalar reduction, the windows, each round of the 4-lane program and the
 whole of it) compiled for the host, and the JAX -> port key-set conversion.
 The sr25519 kernel's added device functions (csrc/ristretto.cuh: the
 (p-5)/8 power, sign, equality, the ristretto decode in every branch, the
-coset check) and its whole program are compiled into the same host harness
-and held against its plain version and Python ints. Bitmaps must match
-exactly.
+coset check) and its whole program, in the order its warps run it (a decode
+pass over a block's signatures into a stand-in for shared memory, then the
+comb groups, each checking against its own slot), are compiled into the
+same host harness and held against its plain version and Python ints, in
+every block shape the launch sweep builds and at lane counts that end
+inside a block. Bitmaps must match exactly.
 
 The JAX device path is run as the JAX package's tests run it on the CPU:
 `ed25519_batch.verify_batch(items, force_device=True)`, which goes through
@@ -278,32 +281,69 @@ static void group_comb(fe v[4], const int32_t* ktab, const int32_t* tab_b,
   }
 }
 
-// The body of a verify kernel for signature groups 0..groups-1 (groups >= n:
-// groups past n stand for the threads of the last block past the lanes);
-// sr = 0 runs ed25519_verify.cu's, sr = 1 sr25519_verify.cu's (d64 is then
-// the wide challenge).
+// The first lines of a verify kernel's body: lane k's coordinates of
+// signature sig's R' in v, and whether the lane is active.
+static bool comb_sig(fe v[4], int sig, const int32_t* tab, int n_keys,
+                     const int32_t* key_idx, const uint8_t* d64, const uint8_t* s32,
+                     const uint8_t* valid, const int32_t* tab_b, int n) {
+  const int col = sig < n ? sig : n - 1;
+  int key = key_idx[col];
+  const bool active = sig < n && valid[col] && key >= 0 && key < n_keys;
+  if (!active) key = 0;
+  uint64_t dw[4], sw[4];
+  lane_scalars(d64 + col, s32 + col, (size_t)n, dw, sw);
+  group_comb(v, tab + (size_t)key * 480, tab_b, dw, sw);
+  return active;
+}
+
+// The body of ed25519_verify.cu's kernel for signature groups 0..groups-1
+// (groups >= n: groups past n stand for the threads of the last block past
+// the lanes).
 extern "C" void host_verify(const int32_t* tab, int n_keys, const int32_t* key_idx,
-    const uint8_t* d64, const uint8_t* s32, const uint8_t* r32,
-    const uint8_t* valid, const int32_t* tab_b, int32_t* ok, int n, int groups,
-    int sr) {
+    const uint8_t* h64, const uint8_t* s32, const uint8_t* r32,
+    const uint8_t* valid, const int32_t* tab_b, int32_t* ok, int n, int groups) {
   for (int sig = 0; sig < groups; sig++) {
-    const int col = sig < n ? sig : n - 1;
-    int key = key_idx[col];
-    const bool active = sig < n && valid[col] && key >= 0 && key < n_keys;
-    if (!active) key = 0;
-    uint64_t dw[4], sw[4];
-    lane_scalars(d64 + col, s32 + col, (size_t)n, dw, sw);
     fe v[4];
-    group_comb(v, tab + (size_t)key * 480, tab_b, dw, sw);
-    int32_t eq;
-    if (sr) {
-      fe x, y;
-      const int32_t r_ok = ristretto_decode(fe_from_le(r32 + col, (size_t)n), &x, &y);
-      eq = r_ok && ristretto_coset_eq(v[0], v[1], x, y);
-    } else {
-      eq = encodes_to(v[0], v[1], v[2], r32 + col, (size_t)n);
-    }
+    const bool active = comb_sig(v, sig, tab, n_keys, key_idx, h64, s32, valid,
+                                 tab_b, n);
+    const int32_t eq = encodes_to(v[0], v[1], v[2], r32 + (sig < n ? sig : n - 1),
+                                  (size_t)n);
     if (sig < n) ok[sig] = active && eq;
+  }
+}
+
+// The body of sr25519_verify.cu's kernel over the blocks that cover n lanes,
+// with the block's shape as arguments (at most 64 signatures a block), in
+// the order its warps run: first the decode warps' pass over the block's
+// slots (lanes past n decode column n - 1) into dec, which stands for the
+// block's shared memory (every block's copy is kept: dec_out is (blocks,
+// DEC_INTS, sigs)), then the comb groups, each checking its R' against its
+// own slot.
+extern "C" void host_sr_verify(const int32_t* tab, int n_keys, const int32_t* key_idx,
+    const uint8_t* k64, const uint8_t* s32, const uint8_t* r32,
+    const uint8_t* valid, const int32_t* tab_b, int32_t* ok, int n,
+    int comb_warps, int decode_warps, int per_lane, int32_t* dec_out) {
+  const int sigs = 8 * comb_warps;
+  static int32_t park[PARK_INTS * 64];
+  for (int base = 0; base < n; base += sigs) {
+    int32_t* dec = dec_out + (size_t)(base / sigs) * DEC_INTS * sigs;
+    for (int lane = 0; lane < 32 * decode_warps; lane++) {
+      for (int j = 0; j < per_lane; j++) {
+        const int slot = lane + 32 * decode_warps * j;
+        const int col = base + slot < n ? base + slot : n - 1;
+        if (slot < sigs)
+          ristretto_decode_store(r32 + col, (size_t)n, dec + slot, sigs, park + slot, sigs);
+      }
+    }
+    for (int slot = 0; slot < sigs; slot++) {
+      const int sig = base + slot;
+      fe v[4], x, y;
+      const bool active = comb_sig(v, sig, tab, n_keys, key_idx, k64, s32, valid,
+                                   tab_b, n);
+      const int32_t r_ok = ristretto_decoded_load(dec + slot, sigs, &x, &y);
+      const int32_t eq = r_ok & ristretto_coset_eq(v[0], v[1], x, y);
+      if (sig < n) ok[sig] = active && eq;
+    }
   }
 }
 
@@ -330,7 +370,8 @@ extern "C" void host_decode(const uint8_t* r, int32_t* x, int32_t* y, int32_t* o
                             int n) {
   for (int p = 0; p < n; p++) {
     fe xx, yy;
-    ok[p] = ristretto_decode(fe_from_le(r + 32 * p, 1), &xx, &yy);
+    int32_t park[PARK_INTS];
+    ok[p] = ristretto_decode(fe_from_le(r + 32 * p, 1), &xx, &yy, park, 1);
     put1(x + 10 * p, xx);
     put1(y + 10 * p, yy);
   }
@@ -493,19 +534,32 @@ def test_lane_mixed_add_round_by_round(lanes):
                                (R[3] - R[2]) % P, (R[3] + R[2]) % P]
 
 
-def _host_verify(lib, args, sr: bool = False) -> np.ndarray:
-    """host_verify over args' lanes and 3 groups past them (the ed25519
-    kernel's body, or with `sr` the sr25519 kernel's); checks that nothing
-    is written past the lanes."""
+# Shapes of the sr25519 kernel's block (comb warps, decode warps, decodes a
+# decode lane): the shipped one and the others tools/ed25519_launch_sweep.py
+# builds.
+SR_SHAPES = [(4, 1, 1), (3, 1, 1), (8, 2, 1), (8, 1, 2)]
+
+
+def _host_verify(lib, args, sr: bool = False, shape=SR_SHAPES[0]):
+    """The ed25519 kernel's body (host_verify) over args' lanes and 3 groups
+    past them, or with `sr` the sr25519 kernel's (host_sr_verify) in blocks
+    of `shape`; checks that nothing is written past the lanes. Returns the
+    lanes' bitmap, and with `sr` also the blocks' decode slots (blocks,
+    DEC_INTS, signatures a block)."""
     n = args[1].shape[0]
     ok = np.full((n + 3,), 7, dtype=np.int32)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in args]
-    lib.host_verify(ptrs[0], ctypes.c_int(args[0].shape[0]), *ptrs[1:],
-                    ctypes.c_void_p(cu.tab_b10("cpu").data_ptr()),
-                    _ptr(ok), ctypes.c_int(n), ctypes.c_int(n + 3),
-                    ctypes.c_int(int(sr)))
+    head = (ptrs[0], ctypes.c_int(args[0].shape[0]), *ptrs[1:],
+            ctypes.c_void_p(cu.tab_b10("cpu").data_ptr()), _ptr(ok), ctypes.c_int(n))
+    if sr:
+        sigs = 8 * shape[0]
+        assert sigs <= 64  # host_sr_verify's park
+        dec = np.full((-(-n // sigs), 21, sigs), 7, dtype=np.int32)
+        lib.host_sr_verify(*head, *(ctypes.c_int(v) for v in shape), _ptr(dec))
+    else:
+        lib.host_verify(*head, ctypes.c_int(n + 3))
     assert (ok[n:] == 7).all()
-    return ok[:n]
+    return (ok[:n], dec) if sr else ok[:n]
 
 
 def test_kernel_arithmetic_compiled_for_host_matches_plain(mixed, lanes):
@@ -700,7 +754,7 @@ def test_sr_kernel_arithmetic_compiled_for_host_matches_plain(lanes):
     ks, key_idx, pub_ok = srb.lookup_keys(items, "cpu")
     args = scu.lane_inputs(ks, key_idx, items, pub_ok, torch.device("cpu"))
     n = args[1].shape[0]
-    ok = _host_verify(lanes, args, sr=True)
+    ok, _ = _host_verify(lanes, args, sr=True)
     assert ok.tolist() == scu.verify_plain(*args).tolist()
     assert ok[:len(items)].astype(bool).tolist() == want
     bad = args[1].clone()
@@ -709,9 +763,74 @@ def test_sr_kernel_arithmetic_compiled_for_host_matches_plain(lanes):
     assert ok[hit].all()
     bad[[0, 1, 2]] = torch.tensor([-1, args[0].shape[0], 1 << 30], dtype=torch.int32)
     bargs = (args[0], bad, *args[2:])
-    ok_bad = _host_verify(lanes, bargs, sr=True)
+    ok_bad, _ = _host_verify(lanes, bargs, sr=True)
     assert ok_bad.tolist() == scu.verify_plain(*bargs).tolist()
     assert not ok_bad[hit].any() and (ok_bad[~hit] == ok[~hit]).all()
+
+
+@pytest.fixture(scope="module")
+def sr_batch():
+    """108 sr25519 items (six seeds of _sr_items: valid signatures and every
+    corruption), their reference decisions and the kernel's arguments."""
+    items = [it for seed in range(5, 11) for it in _sr_items(seed)]
+    want = np.array([sr.verify(*it) for it in items])
+    ks, key_idx, pub_ok = srb.lookup_keys(items, "cpu")
+    args = scu.lane_inputs(ks, key_idx, items, pub_ok, torch.device("cpu"))
+    return items, want, args
+
+
+def _first_lanes(args, m: int) -> tuple:
+    """The kernel's arguments for the first m lanes only (n = m)."""
+    tab, *cols = args
+    return (tab, *[c[..., :m].contiguous() for c in cols])
+
+
+@pytest.mark.parametrize("shape", SR_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("n", [1, 31, 33, 3 * 32 + 5])
+def test_sr_kernel_block_tails_compiled_for_host(sr_batch, lanes, n, shape):
+    """The sr25519 program in blocks of `shape` at n lanes that end inside a
+    block: the decode lanes past n decode column n - 1 and the comb groups
+    past n write nothing; the bitmap equals the plain version's and the
+    scalar reference's."""
+    items, want, args = sr_batch
+    a = _first_lanes(args, n)
+    ok, dec = _host_verify(lanes, a, sr=True, shape=shape)
+    assert ok.tolist() == scu.verify_plain(*a).tolist()
+    assert ok.astype(bool).tolist() == want[:n].tolist()
+    assert dec.shape[0] == -(-n // (8 * shape[0]))
+    tail = dec[-1][:, (n - 1) % dec.shape[2]:]
+    assert (tail == tail[:, :1]).all()  # the last lane's slot, repeated
+
+
+@pytest.mark.parametrize("shape", SR_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_sr_decode_pass_stores_the_decode_in_every_branch(lanes, shape):
+    """The decode pass's slots (x, y, r_ok) for encodings that reach every
+    branch of the decode equal the plain version's scu.ristretto_decode
+    (and the scalar reference's point); each slot holds its own lane's
+    decode, and slots past n the decode of column n - 1."""
+    cases, branches = _decode_cases()
+    n = len(cases)
+    assert n < 8 * shape[0] and set(branches) == {"ok", "not_square", "t_negative",
+                                                  "y_zero"}
+    r32 = np.stack([np.frombuffer(s.to_bytes(32, "little"), np.uint8) for s in cases])
+    cols = np.arange(8 * shape[0]).clip(max=n - 1)  # slot -> decoded column
+    zeros = torch.zeros((n,), dtype=torch.int32)
+    args = (cu.tab_b10("cpu").reshape(1, 16, 3, 10), zeros,
+            torch.zeros((64, n), dtype=torch.uint8), torch.zeros((32, n), dtype=torch.uint8),
+            torch.from_numpy(r32.T.copy()), zeros.to(torch.uint8))
+    ok, dec = _host_verify(lanes, args, sr=True, shape=shape)
+    assert not ok.any()  # validity 0
+    r_y, _ = cu.r_limbs(args[4])
+    px, py, pok = scu.ristretto_decode(r_y.T.contiguous())
+    x, y, r_ok = dec[0, :10].T, dec[0, 10:20].T, dec[0, 20]
+    assert r_ok.tolist() == pok.to(torch.int32)[cols].tolist()
+    assert r_ok[:n].tolist() == [int(b == "ok") for b in branches]
+    assert _values(x) == [_torch_values(px)[c] for c in cols]
+    assert _values(y) == [_torch_values(py)[c] for c in cols]
+    for i, s in enumerate(cases):
+        pt = sr.ristretto_decode(s.to_bytes(32, "little"))
+        if pt is not None:
+            assert (_values(x[i])[0], _values(y[i])[0]) == pt[:2]
 
 
 _SQ_HARNESS = r"""
